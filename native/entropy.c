@@ -3,11 +3,11 @@
  * Behavior parity: src/msac.rs (64-bit window) and src/recon.rs decode_coefs
  * (:478) / get_skip_ctx (:252) / get_dc_sign_ctx (:318) / get_lo_ctx (:449).
  * This is a fresh implementation matching the Python reference in
- * rav1d_tpu/entropy/msac.py and rav1d_tpu/recon/coefs.py (the correctness
+ * rav1d_jax/entropy/msac.py and rav1d_jax/recon/coefs.py (the correctness
  * anchor, bit-exact against the oracle); all spec data tables are passed in
  * from Python (no tables are duplicated here).
  *
- * Exposed via ctypes (see rav1d_tpu/native/__init__.py).
+ * Exposed via ctypes (see rav1d_jax/native/__init__.py).
  */
 
 #include <stdint.h>
@@ -204,7 +204,7 @@ static uint32_t read_golomb(Msac *s) {
 
 enum { TX_CLASS_2D = 0, TX_CLASS_H = 1, TX_CLASS_V = 2 };
 
-/* txtp decode kinds (see rav1d_tpu/recon/coefs.py decode_coefs) */
+/* txtp decode kinds (see rav1d_jax/recon/coefs.py decode_coefs) */
 enum {
     TXTP_FIXED = 0,   /* use txtp_fixed as-is, no symbol read */
     TXTP_INTRA2 = 1,  /* symbol n=4,  set offset 0 */
@@ -216,7 +216,7 @@ enum {
 
 /* All spec tables are passed by pointer from the Python side (single source
  * of truth: the extracted .npz data).  CDF table strides below mirror the
- * padded numpy layouts built in rav1d_tpu/entropy/cdf.py (last axis padded
+ * padded numpy layouts built in rav1d_jax/entropy/cdf.py (last axis padded
  * by one counter slot). */
 typedef struct CoefCdfPtrs {
     uint16_t *skip;          /* (5, 13, 2)     */

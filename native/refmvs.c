@@ -1,7 +1,7 @@
 /* Native MV-predictor scan: rav1d_refmvs_find equivalent.
  *
  * Behavior parity with rav1d src/refmvs.rs:939 (rav1d_refmvs_find), ported
- * from the validated Python anchor (rav1d_tpu/syntax/refmvs.py). Operates
+ * from the validated Python anchor (rav1d_jax/syntax/refmvs.py). Operates
  * directly on the decoder's numpy grids:
  *   r:       packed 12-byte records {int16 mv[2][2]; int8 ref[2]; u8 bs; u8 mf}
  *   rp_proj: packed 5-byte records {int16 mv[2]; int8 ref}

@@ -3,18 +3,18 @@
  * Behavior parity: rav1d src/decode.rs (decode_sb:3260, decode_b:1131),
  * src/env.rs context helpers, src/warpmv.rs, src/lf_mask.rs recording,
  * src/recon.rs read_coef_blocks ordering. This is a fresh C implementation
- * ported from the validated Python anchor (rav1d_tpu/syntax/decode.py,
- * rav1d_tpu/recon/{coefs,intra,inter,lf,lf_mask}.py, syntax/{env,refmvs}.py)
+ * ported from the validated Python anchor (rav1d_jax/syntax/decode.py,
+ * rav1d_jax/recon/{coefs,intra,inter,lf,lf_mask}.py, syntax/{env,refmvs}.py)
  * which is itself bit-exact against the dav1d test-data md5 oracle.
  *
  * The decoder's two-pass split (rav1d frame-thread analog) is preserved:
  * this pass consumes msac symbols and emits (a) dequantized coefficient
  * blocks into the frame-wide CoefStore arrays and (b) fixed-size per-block
  * work records (BlockRec) plus side arenas (palettes, filter snapshots)
- * that the Python/TPU dense pass replays.
+ * that the host or device dense pass replays.
  *
  * Linked together with entropy.c (msac + decode_coefs) and refmvs.c
- * (dav1d_refmvs_find) into libsyntax.so; see rav1d_tpu/native/syntax.py.
+ * (dav1d_refmvs_find) into libsyntax.so; see rav1d_jax/native/syntax.py.
  */
 
 #include <stdint.h>
@@ -124,7 +124,7 @@ typedef struct RefMvsCall {
 void dav1d_refmvs_find(RefMvsCall *p);
 
 /* ---------------------------------------------------------------------- */
-/* enums (rav1d src/levels.rs; values match rav1d_tpu/syntax/levels.py)    */
+/* enums (rav1d src/levels.rs; values match rav1d_jax/syntax/levels.py)    */
 
 enum { TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64 };
 enum {
@@ -404,7 +404,7 @@ static void div_lut_init(void) {
 }
 
 /* ---------------------------------------------------------------------- */
-/* interface structs (ctypes mirrors in rav1d_tpu/native/syntax.py)        */
+/* interface structs (ctypes mirrors in rav1d_jax/native/syntax.py)        */
 
 typedef struct MvCompCdf {
     uint16_t *classes;   /* (11,)  */
@@ -1986,7 +1986,7 @@ static void record_lf_inter(const SyFrame *f, SyTile *ts, SyTask *t,
                 cell[1] = lvls[1][ref][idx];
             }
         const TxfmInfo *td = &t_dims[max_ytx];
-        static uint8_t txa[2][2][32][32];
+        uint8_t txa[2][2][32][32];  /* per call: tiles decode on threads */
         memset(txa, 0, sizeof(txa));
         for (int y_off = 0; y_off < (bh4 + td->h - 1) / td->h; y_off++)
             for (int x_off = 0; x_off < (bw4 + td->w - 1) / td->w; x_off++)
@@ -2499,8 +2499,8 @@ static void read_pal_indices(SyTile *ts, SyTask *t, uint8_t *pal_idx, Blk *b,
     pal_idx[0] = (uint8_t)msac_decode_uniform(s, pal_sz);
     uint16_t *color_map_cdf =
         ts->cdf.color_map + (((size_t)pli * 7 + (pal_sz - 2)) * 5) * 8;
-    static uint8_t order[64][8];
-    static uint8_t ctx[64];
+    uint8_t order[64][8];  /* per call: tiles decode on threads */
+    uint8_t ctx[64];
     for (int i = 1; i < 4 * (w4 + h4) - 1; i++) {
         int first = imin(i, w4 * 4 - 1);
         int last = imax(i + 1 - h4 * 4, 0);

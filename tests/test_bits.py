@@ -1,6 +1,6 @@
 """Bit reader unit tests (GetBits semantics vs src/getbits.rs)."""
 
-from rav1d_tpu.bits import GetBits, inv_recenter
+from rav1d_jax.bits import GetBits, inv_recenter
 
 
 def test_get_bits_basic():

@@ -9,8 +9,8 @@ import random
 import numpy as np
 import pytest
 
-from rav1d_tpu.entropy.cdf import CdfContext, get_qcat_idx
-from rav1d_tpu.entropy.msac import MsacContext, PyMsacContext
+from rav1d_jax.entropy.cdf import CdfContext, get_qcat_idx
+from rav1d_jax.entropy.msac import MsacContext, PyMsacContext
 
 IMPLS = [MsacContext]
 if MsacContext is not PyMsacContext:
@@ -111,7 +111,7 @@ def test_qcat():
 
 
 def test_cdf_update_zeroes_counters():
-    from rav1d_tpu.headers import FrameHeader, FrameType
+    from rav1d_jax.headers import FrameHeader, FrameType
 
     c = CdfContext.from_qindex(50)
     s = MsacContext(bytes(range(1, 129)))

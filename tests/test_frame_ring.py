@@ -10,18 +10,19 @@ import hashlib
 
 import pytest
 
-from rav1d_tpu.decoder import Decoder, EAgain, Settings
-from rav1d_tpu.io.ivf import IvfDemuxer
+from rav1d_jax.decoder import Decoder, EAgain, Settings
+from rav1d_jax.io.ivf import IvfDemuxer
 
-DATA = "/root/reference/tests/dav1d-test-data"
-VEC = f"{DATA}/8-bit/data/00000627.ivf"
+from conftest import gen_stream
+
+INTER = dict(seed=627, width=160, height=96, frames=12)
 
 
 def _md5(delay, limit=12):
     dec = Decoder(Settings(apply_grain=False, max_frame_delay=delay))
     md5 = hashlib.md5()
     n = 0
-    for pkt in IvfDemuxer(VEC):
+    for pkt in IvfDemuxer(gen_stream(**INTER)):
         dec.send_data(pkt.data, pkt.timestamp)
         while n < limit:
             try:
@@ -48,7 +49,7 @@ def test_framedelay_invariant(delay):
 def test_flush_waits_ring():
     """flush() while dense work is in flight must not corrupt or deadlock."""
     dec = Decoder(Settings(apply_grain=False, max_frame_delay=4))
-    it = iter(IvfDemuxer(VEC))
+    it = iter(IvfDemuxer(gen_stream(**INTER)))
     for _ in range(3):
         dec.send_data(next(it).data, 0)
         try:

@@ -6,25 +6,26 @@ Reference contract: tests/libfuzzer/dav1d_fuzzer.c:40-50 (any byte stream
 is safe to feed) and src/lib.rs cached-error semantics (a decode error is
 returned once, the context stays alive). The mutation corpus here is
 deterministic (seeded): bit flips, truncations, and garbage injections over
-real conformance vectors.
+generated streams (rav1d_jax/gen).
 """
 
 import numpy as np
 import pytest
 
-from rav1d_tpu.decoder import DecodeError, Decoder, EAgain, Settings
-from rav1d_tpu.io.ivf import IvfDemuxer
+from rav1d_jax.decoder import DecodeError, Decoder, EAgain, Settings
+from rav1d_jax.io.ivf import IvfDemuxer
 
-DATA = "/root/reference/tests/dav1d-test-data"
-VEC_INTRA = f"{DATA}/8-bit/data/00000000.ivf"
-VEC_INTER = f"{DATA}/8-bit/data/00000627.ivf"
+from conftest import gen_stream
+
+VEC_INTRA = dict(seed=0, width=128, height=96, frames=6, kf_every=1)
+VEC_INTER = dict(seed=627, width=160, height=96, frames=12)
 
 ACCEPTABLE = (DecodeError, EAgain)
 
 
-def _packets(path, limit=6):
+def _packets(spec, limit=6):
     pkts = []
-    for pkt in IvfDemuxer(path):
+    for pkt in IvfDemuxer(gen_stream(**spec)):
         pkts.append(bytes(pkt.data))
         if len(pkts) >= limit:
             break
@@ -49,7 +50,7 @@ def _feed(dec, data):
     return got
 
 
-@pytest.mark.parametrize("vec", [VEC_INTRA, VEC_INTER])
+@pytest.mark.parametrize("vec", [VEC_INTRA, VEC_INTER], ids=["intra", "inter"])
 def test_bitflip_fuzz(vec):
     pkts = _packets(vec)
     rng = np.random.default_rng(0xC0FFEE)
@@ -65,7 +66,7 @@ def test_bitflip_fuzz(vec):
             _feed(dec, bytes(buf))
 
 
-@pytest.mark.parametrize("vec", [VEC_INTRA, VEC_INTER])
+@pytest.mark.parametrize("vec", [VEC_INTRA, VEC_INTER], ids=["intra", "inter"])
 def test_truncation_fuzz(vec):
     pkts = _packets(vec)
     rng = np.random.default_rng(0xF00D)

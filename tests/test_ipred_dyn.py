@@ -1,14 +1,14 @@
-"""Randomized parity: traced-size intra kernels (ops/tpu/ipred_dyn) vs the
+"""Randomized parity: traced-size intra kernels (ops/dev/ipred_dyn) vs the
 scalar reference (ops/ref/ipred) — the checkasm pattern
-(/root/reference/tests/checkasm/ipred.c) at class granularity: one batch
+(dav1d tests/checkasm/ipred.c) at class granularity: one batch
 mixes many (w, h) sizes and angles, every item must match bit-exactly."""
 
 import numpy as np
 import pytest
 
-from rav1d_tpu.ops.ref import ipred as R
-from rav1d_tpu.ops.tpu import ipred_dyn as D
-from rav1d_tpu.syntax.levels import (
+from rav1d_jax.ops.ref import ipred as R
+from rav1d_jax.ops.dev import ipred_dyn as D
+from rav1d_jax.syntax.levels import (
     DC_128_PRED,
     DC_PRED,
     HOR_PRED,

@@ -1,10 +1,11 @@
-"""Real-stream multi-chip decode check: the inverse-transform batch of an
-actual conformance frame, sharded over meshes of 1/2/4/8 devices, must
-reproduce the single-device residual plane bit-exactly.
+"""Stream-driven multi-device check: the inverse-transform batch of a
+decoded frame, sharded over meshes of 1/2/4/8 devices, must reproduce the
+single-device residual plane bit-exactly.
 
-This exercises rav1d_tpu.parallel.resid on REAL coefficients captured
-from the decoder (not synthetic tensors) — the mesh-invariance oracle
-DESIGN.md promises (same output on any mesh shape)."""
+This exercises rav1d_jax.parallel.resid on coefficients captured from the
+decoder on a generated stream (not synthetic tensors) — the
+mesh-invariance oracle DESIGN.md promises (same output on any mesh
+shape)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,20 +13,20 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from rav1d_tpu.parallel.resid import (
+from rav1d_jax.parallel.resid import (
     capture_frame,
     group_residuals,
     sharded_residual_plane,
     single_device_residual_plane,
 )
 
-DATA = "/root/reference/tests/dav1d-test-data"
-VEC = f"{DATA}/8-bit/data/00000627.ivf"
-
-
 @pytest.fixture(scope="module")
 def frame_data():
-    f = capture_frame(VEC, frame_idx=0)
+    import __graft_entry__
+    from rav1d_jax.gen.stream import stream_path
+
+    f = capture_frame(stream_path(__graft_entry__._multichip_spec()),
+                      frame_idx=0)
     store = f.coef_store
     ah, aw = f.cur.y.shape
     psz = ah * aw

@@ -7,15 +7,15 @@ must produce identical (mvstack, cnt, ctx).
 
 import pytest
 
-from conftest import vector_path
-from rav1d_tpu.syntax import refmvs as R
+from conftest import gen_stream
+from rav1d_jax.syntax import refmvs as R
 
 
 @pytest.fixture
 def crosscheck(monkeypatch):
     if R.refmvs_find.__module__ is None:  # pragma: no cover
         pytest.skip("no native core")
-    from rav1d_tpu.native import LIB_REFMVS
+    from rav1d_jax.native import LIB_REFMVS
 
     if LIB_REFMVS is None:
         pytest.skip("native refmvs unavailable")
@@ -37,31 +37,31 @@ def crosscheck(monkeypatch):
         return want
 
     monkeypatch.setattr(R, "refmvs_find", checked)
-    import rav1d_tpu.syntax.decode as D
+    import rav1d_jax.syntax.decode as D
 
     monkeypatch.setattr(D.refmvs, "refmvs_find", checked)
     # the hook lives on the Python syntax pass; force it on
-    from rav1d_tpu.native import syntax as nsy
+    from rav1d_jax.native import syntax as nsy
 
     monkeypatch.setattr(nsy, "FORCE_OFF", True)
     return calls
 
 
 @pytest.mark.parametrize(
-    "rel,frames",
+    "spec,frames",
     [
-        ("8-bit/mv/av1-1-b8-05-mv.ivf", 8),
-        ("8-bit/mfmv/av1-1-b8-06-mfmv.ivf", 8),
-        ("8-bit/data/00000627.ivf", 6),
+        (dict(seed=5, width=176, height=144, frames=6), 6),
+        (dict(seed=6, width=208, height=112, frames=6), 6),
+        (dict(seed=627, width=160, height=96, frames=6), 6),
     ],
 )
-def test_refmvs_native_parity(crosscheck, rel, frames):
-    from rav1d_tpu.decoder import Decoder, EAgain, Settings
-    from rav1d_tpu.io import probe_demuxer
+def test_refmvs_native_parity(crosscheck, spec, frames):
+    from rav1d_jax.decoder import Decoder, EAgain, Settings
+    from rav1d_jax.io import probe_demuxer
 
     dec = Decoder(Settings(apply_grain=False))
     n = 0
-    for pkt in probe_demuxer(vector_path(rel)):
+    for pkt in probe_demuxer(gen_stream(**spec)):
         dec.send_data(pkt.data, pkt.timestamp)
         while True:
             try:

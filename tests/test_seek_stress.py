@@ -9,10 +9,14 @@ import random
 
 import pytest
 
-from conftest import vector_path
-from rav1d_tpu.decoder import Decoder, EAgain, Settings
-from rav1d_tpu.io import probe_demuxer
-from rav1d_tpu.io.muxers import Md5Muxer
+from conftest import gen_stream
+from rav1d_jax.decoder import Decoder, EAgain, Settings
+from rav1d_jax.io import probe_demuxer
+from rav1d_jax.io.muxers import Md5Muxer
+
+
+INTRA = dict(seed=324, width=208, height=144, frames=1)
+INTER = dict(seed=627, width=160, height=96, frames=12)
 
 
 def _drain(dec, sink):
@@ -28,7 +32,7 @@ def _drain(dec, sink):
 def test_flush_then_redecode_matches():
     """Decode, flush mid-stream, re-feed from the start: the re-decode must
     be bit-identical to a fresh decode."""
-    path = vector_path("8-bit/issues/324_tennis.ivf")
+    path = gen_stream(**INTRA)
     pkts = list(probe_demuxer(path))
 
     def full_md5():
@@ -56,7 +60,7 @@ def test_random_seek_flush_stress():
     """Random flush points over a multi-frame stream; after each flush,
     re-feeding from the start must decode cleanly to the same frame count
     and MD5 (seek_stress.rs random-seek loop analog)."""
-    path = vector_path("8-bit/data/00000627.ivf")
+    path = gen_stream(**INTER)
     pkts = list(probe_demuxer(path))[:12]
 
     dec = Decoder(Settings(apply_grain=False))
@@ -86,7 +90,7 @@ def test_random_seek_flush_stress():
 
 def test_flush_clears_pending_eagain():
     """send_data raises EAgain while input is pending; flush must clear it."""
-    path = vector_path("8-bit/issues/324_tennis.ivf")
+    path = gen_stream(**INTRA)
     pkts = list(probe_demuxer(path))
     dec = Decoder(Settings(apply_grain=False))
     dec.send_data(pkts[0].data, pkts[0].timestamp)

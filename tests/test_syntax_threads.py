@@ -5,16 +5,16 @@ have independent entropy state, src/internal.rs:824-845)."""
 
 import pytest
 
-from conftest import vector_path
-from rav1d_tpu.decoder import Decoder, EAgain, Settings
-from rav1d_tpu.io.ivf import IvfDemuxer
-from rav1d_tpu.io.muxers import Md5Muxer
+from conftest import gen_stream
+from rav1d_jax.decoder import Decoder, EAgain, Settings
+from rav1d_jax.io.ivf import IvfDemuxer
+from rav1d_jax.io.muxers import Md5Muxer
 
-# multi-tile vectors with their meson-oracle MD5s (8-bit/meson.build)
+# generated multi-tile streams (uniform power-of-two grids)
 VECTORS = [
-    ("8-bit/data/00000015.ivf", (3, 3)),   # 3x3 tile grid
-    ("8-bit/data/00000009.ivf", (2, 2)),
-    ("8-bit/data/00000029.ivf", (1, 5)),   # tile rows only
+    (dict(seed=15, width=512, height=256, frames=2), (4, 2)),
+    (dict(seed=9, width=256, height=192, frames=3), (2, 2)),
+    (dict(seed=29, width=128, height=256, frames=2), (1, 4)),   # rows only
 ]
 
 
@@ -34,9 +34,10 @@ def _md5(path, threads):
     return mux.digest()
 
 
-@pytest.mark.parametrize("rel,grid", VECTORS)
-def test_threads_invariant(rel, grid):
-    path = vector_path(rel)
+@pytest.mark.parametrize("spec,grid", VECTORS,
+                         ids=["grid4x2", "grid2x2", "grid1x4"])
+def test_threads_invariant(spec, grid):
+    path = gen_stream(tiles=grid, **spec)
     serial = _md5(path, 1)
     for threads in (2, 4):
         assert _md5(path, threads) == serial, f"threads={threads}"

@@ -1,12 +1,12 @@
-"""Bit-exactness of TPU CDEF vs the numpy reference."""
+"""Bit-exactness of device CDEF vs the numpy reference."""
 
 import numpy as np
 
-from rav1d_tpu.ops.ref import cdef as R
+from rav1d_jax.ops.ref import cdef as R
 
 
 def test_find_dir_batch():
-    from rav1d_tpu.ops.tpu.cdef import find_dir_batch
+    from rav1d_jax.ops.dev.cdef import find_dir_batch
 
     rng = np.random.RandomState(5)
     for bpc in (8, 10):
@@ -19,7 +19,7 @@ def test_find_dir_batch():
 
 
 def test_cdef_filter_batch():
-    from rav1d_tpu.ops.tpu.cdef import cdef_filter_batch
+    from rav1d_jax.ops.dev.cdef import cdef_filter_batch
 
     rng = np.random.RandomState(6)
     bpc = 8
@@ -66,7 +66,7 @@ def _ref_filter_tile(dst, tile, pri, sec, direction, damping, bpc):
         pri_shift = max(0, damping - (int(pri).bit_length() - 1))
     sec_shift = damping - (int(sec).bit_length() - 1) if sec else 0
 
-    from rav1d_tpu.tables.spec_data import CDEF_DIRECTIONS
+    from rav1d_jax.tables.spec_data import CDEF_DIRECTIONS
 
     def off(o):
         o = int(o)

@@ -1,4 +1,4 @@
-"""Parity: TPU film-grain blend vs the reference fgy noise math."""
+"""Parity: device film-grain blend vs the reference fgy noise math."""
 
 import numpy as np
 import pytest
@@ -6,7 +6,7 @@ import pytest
 
 @pytest.mark.parametrize("bpc", [8, 10])
 def test_fg_blend_batch_parity(bpc):
-    from rav1d_tpu.ops.tpu.fg import fg_blend_batch
+    from rav1d_jax.ops.dev.fg import fg_blend_batch
 
     rng = np.random.default_rng(bpc)
     N, h, w = 6, 32, 32

@@ -1,9 +1,9 @@
-"""checkasm-style parity: TPU (jax) intra prediction vs numpy reference."""
+"""checkasm-style parity: device (jax) intra prediction vs numpy reference."""
 
 import numpy as np
 import pytest
 
-from rav1d_tpu.ops.ref import ipred as R
+from rav1d_jax.ops.ref import ipred as R
 
 MODES = [
     ("dc", R.ipred_dc),
@@ -23,10 +23,10 @@ MODES = [
 @pytest.mark.parametrize("w,h", [(4, 4), (8, 16), (32, 8), (64, 64)])
 @pytest.mark.parametrize("name", [m[0] for m in MODES])
 def test_ipred_batch_parity(name, w, h, bpc):
-    from rav1d_tpu.ops.tpu import ipred as T
+    from rav1d_jax.ops.dev import ipred as T
 
     ref_fn = dict(MODES)[name]
-    tpu_fn = getattr(T, f"ipred_{name}_batch")
+    dev_fn = getattr(T, f"ipred_{name}_batch")
     rng = np.random.default_rng(hash((name, w, h, bpc)) & 0xFFFF)
     N = 7
     off = 2 * 64  # edge buffer center, matching ipred_prepare layout slack
@@ -36,11 +36,11 @@ def test_ipred_batch_parity(name, w, h, bpc):
     want = np.zeros((N, h, w), dtype=np.int32)
     for i in range(N):
         ref_fn(want[i], tls[i], off, w, h, 0, w, h, bpc)
-    got = np.asarray(tpu_fn(tls, off, w, h, bpc))
+    got = np.asarray(dev_fn(tls, off, w, h, bpc))
     np.testing.assert_array_equal(got, want)
 
 
-from rav1d_tpu.ops.ref import ipred as RI
+from rav1d_jax.ops.ref import ipred as RI
 
 
 def _rand_edge(rng, n, bpc, L=257):
@@ -59,7 +59,7 @@ Z3_ANGLES = np.asarray([a for a in _ALL_ANGLES if 180 < a < 270])
 @pytest.mark.parametrize("bpc", [8, 10, 12])
 @pytest.mark.parametrize("w,h", [(4, 4), (8, 4), (16, 16), (4, 16), (32, 8), (64, 64)])
 def test_z1_batch_parity(bpc, w, h):
-    from rav1d_tpu.ops.tpu.ipred import ipred_z1_batch
+    from rav1d_jax.ops.dev.ipred import ipred_z1_batch
 
     rng = np.random.default_rng(bpc + w * 3 + h)
     N, off = 24, 128
@@ -79,7 +79,7 @@ def test_z1_batch_parity(bpc, w, h):
 @pytest.mark.parametrize("bpc", [8, 10, 12])
 @pytest.mark.parametrize("w,h", [(4, 4), (8, 16), (16, 8), (32, 32), (64, 16)])
 def test_z3_batch_parity(bpc, w, h):
-    from rav1d_tpu.ops.tpu.ipred import ipred_z3_batch
+    from rav1d_jax.ops.dev.ipred import ipred_z3_batch
 
     rng = np.random.default_rng(bpc + w * 5 + h)
     N, off = 24, 128
@@ -99,7 +99,7 @@ def test_z3_batch_parity(bpc, w, h):
 @pytest.mark.parametrize("bpc", [8, 10, 12])
 @pytest.mark.parametrize("w,h", [(4, 4), (8, 16), (16, 8), (32, 32), (64, 32)])
 def test_z2_batch_parity(bpc, w, h):
-    from rav1d_tpu.ops.tpu.ipred import ipred_z2_batch
+    from rav1d_jax.ops.dev.ipred import ipred_z2_batch
 
     rng = np.random.default_rng(bpc + w * 7 + h)
     N, off = 24, 128
@@ -129,7 +129,7 @@ def test_z2_batch_parity(bpc, w, h):
 @pytest.mark.parametrize("bpc", [8, 10])
 @pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (32, 16), (16, 32)])
 def test_filter_batch_parity(bpc, w, h):
-    from rav1d_tpu.ops.tpu.ipred import ipred_filter_batch
+    from rav1d_jax.ops.dev.ipred import ipred_filter_batch
 
     rng = np.random.default_rng(bpc + w + h)
     N, off = 10, 128
@@ -147,7 +147,7 @@ def test_filter_batch_parity(bpc, w, h):
 @pytest.mark.parametrize("ss_hor,ss_ver", [(0, 0), (1, 0), (1, 1)])
 @pytest.mark.parametrize("w,h", [(4, 4), (16, 8)])
 def test_cfl_ac_batch_parity(bpc, ss_hor, ss_ver, w, h):
-    from rav1d_tpu.ops.tpu.ipred import cfl_ac_batch
+    from rav1d_jax.ops.dev.ipred import cfl_ac_batch
 
     rng = np.random.default_rng(bpc + ss_hor * 2 + ss_ver + w + h)
     N = 12
@@ -169,7 +169,7 @@ def test_cfl_ac_batch_parity(bpc, ss_hor, ss_ver, w, h):
 
 @pytest.mark.parametrize("bpc", [8, 10])
 def test_cfl_pred_batch_parity(bpc):
-    from rav1d_tpu.ops.tpu.ipred import cfl_pred_batch
+    from rav1d_jax.ops.dev.ipred import cfl_pred_batch
 
     rng = np.random.default_rng(bpc)
     N, h, w = 8, 8, 16
@@ -186,7 +186,7 @@ def test_cfl_pred_batch_parity(bpc):
 
 
 def test_pal_pred_batch_parity():
-    from rav1d_tpu.ops.tpu.ipred import pal_pred_batch
+    from rav1d_jax.ops.dev.ipred import pal_pred_batch
 
     rng = np.random.default_rng(77)
     N, h, w = 6, 8, 8

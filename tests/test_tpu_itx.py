@@ -1,10 +1,10 @@
-"""Bit-exactness of the TPU (jax) batched itx vs the scalar reference."""
+"""Bit-exactness of the device (jax) batched itx vs the scalar reference."""
 
 import numpy as np
 import pytest
 
-from rav1d_tpu.ops.ref import itx as R
-from rav1d_tpu.syntax.levels import (
+from rav1d_jax.ops.ref import itx as R
+from rav1d_jax.syntax.levels import (
     DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
     FLIPADST_FLIPADST, IDTX, V_DCT, H_ADST,
 )
@@ -23,7 +23,7 @@ CASES = [
 @pytest.mark.parametrize("w,h,txtp", CASES)
 @pytest.mark.parametrize("bpc", [8, 10])
 def test_itx_batch_matches_ref(w, h, txtp, bpc):
-    from rav1d_tpu.ops.tpu.itx import itx_add_batch
+    from rav1d_jax.ops.dev.itx import itx_add_batch
 
     rng = np.random.RandomState(hash((w, h, txtp, bpc)) & 0xFFFF)
     N = 5
@@ -44,7 +44,7 @@ def test_itx_batch_matches_ref(w, h, txtp, bpc):
 
 
 def _run_case(w, h, txtp, bpc):
-    from rav1d_tpu.ops.tpu.itx import itx_add_batch
+    from rav1d_jax.ops.dev.itx import itx_add_batch
 
     rng = np.random.RandomState(1)
     N = 3

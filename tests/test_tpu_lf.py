@@ -1,15 +1,15 @@
-"""checkasm-style parity: TPU (jax) deblock lines vs numpy executor."""
+"""checkasm-style parity: device (jax) deblock lines vs numpy executor."""
 
 import numpy as np
 import pytest
 
-from rav1d_tpu.ops.ref.lf import filter_lines_batch as ref_filter
+from rav1d_jax.ops.ref.lf import filter_lines_batch as ref_filter
 
 
 @pytest.mark.parametrize("bpc", [8, 10, 12])
 @pytest.mark.parametrize("wd", [4, 6, 8, 16])
 def test_deblock_lines_parity(bpc, wd):
-    from rav1d_tpu.ops.tpu.lf import filter_lines_batch as tpu_filter
+    from rav1d_jax.ops.dev.lf import filter_lines_batch as dev_filter
 
     rng = np.random.default_rng(wd * 31 + bpc)
     N = 257
@@ -25,5 +25,5 @@ def test_deblock_lines_parity(bpc, wd):
     H = (L >> 4).astype(np.int32)
 
     want = ref_filter(px, E, I, H, wd, bpc)
-    got = np.asarray(tpu_filter(px, E, I, H, wd, bpc))
+    got = np.asarray(dev_filter(px, E, I, H, wd, bpc))
     np.testing.assert_array_equal(got, want)

@@ -1,15 +1,15 @@
-"""checkasm-style parity: TPU (jax) Wiener restoration vs numpy reference."""
+"""checkasm-style parity: device (jax) Wiener restoration vs numpy reference."""
 
 import numpy as np
 import pytest
 
-from rav1d_tpu.ops.ref.lr import wiener as ref_wiener
+from rav1d_jax.ops.ref.lr import wiener as ref_wiener
 
 
 @pytest.mark.parametrize("bpc", [8, 10, 12])
 @pytest.mark.parametrize("w,h", [(256, 64), (64, 33), (96, 16)])
 def test_wiener_batch_parity(bpc, w, h):
-    from rav1d_tpu.ops.tpu.lr import wiener_batch
+    from rav1d_jax.ops.dev.lr import wiener_batch
 
     rng = np.random.default_rng(w + h + bpc)
     N = 5
@@ -30,9 +30,9 @@ def test_wiener_batch_parity(bpc, w, h):
 @pytest.mark.parametrize("bpc", [8, 10, 12])
 @pytest.mark.parametrize("kind", [0, 1, 2])
 def test_sgr_batch_parity(bpc, kind):
-    from rav1d_tpu.ops.ref.lr import sgr as ref_sgr
-    from rav1d_tpu.ops.tpu.lr import sgr_batch
-    from rav1d_tpu.tables.spec_data import SGR_PARAMS
+    from rav1d_jax.ops.ref.lr import sgr as ref_sgr
+    from rav1d_jax.ops.dev.lr import sgr_batch
+    from rav1d_jax.tables.spec_data import SGR_PARAMS
 
     rng = np.random.default_rng(bpc * 3 + kind)
     # sgr_idx choices per kind: 5x5-only (s1==0), 3x3-only (s0==0), mix

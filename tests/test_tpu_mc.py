@@ -1,17 +1,17 @@
-"""checkasm-style parity: TPU (jax) mc/warp kernels vs numpy batch executors
+"""checkasm-style parity: device (jax) mc/warp kernels vs numpy batch executors
 on randomized inputs (tests/checkasm/mc.c analog)."""
 
 import numpy as np
 import pytest
 
-from rav1d_tpu.ops.ref.mc import compute_8tap_batch, warp_affine_8x8_batch
+from rav1d_jax.ops.ref.mc import compute_8tap_batch, warp_affine_8x8_batch
 
 
 @pytest.mark.parametrize("bpc", [8, 10])
 @pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 8), (32, 32)])
 @pytest.mark.parametrize("has_h,has_v", [(1, 1), (1, 0), (0, 1), (0, 0)])
 def test_mc_8tap_batch_parity(bpc, w, h, has_h, has_v):
-    from rav1d_tpu.ops.tpu.mc import mc_8tap_batch
+    from rav1d_jax.ops.dev.mc import mc_8tap_batch
 
     rng = np.random.default_rng(w * 100 + h + bpc)
     vis_w, vis_h = 96, 64
@@ -36,7 +36,7 @@ def test_mc_8tap_batch_parity(bpc, w, h, has_h, has_v):
 
 @pytest.mark.parametrize("bpc", [8, 10])
 def test_warp_8x8_batch_parity(bpc):
-    from rav1d_tpu.ops.tpu.mc import warp_8x8_batch
+    from rav1d_jax.ops.dev.mc import warp_8x8_batch
 
     rng = np.random.default_rng(3 + bpc)
     vis_w, vis_h = 80, 64
@@ -63,14 +63,14 @@ def test_warp_8x8_batch_parity(bpc):
     np.testing.assert_array_equal(got, want)
 
 
-from rav1d_tpu.ops.ref import mc as RM
+from rav1d_jax.ops.ref import mc as RM
 
 
 @pytest.mark.parametrize("bpc", [8, 10, 12])
 @pytest.mark.parametrize("w,h", [(4, 4), (8, 16), (32, 8)])
 @pytest.mark.parametrize("has_h,has_v", [(1, 1), (1, 0), (0, 1), (0, 0)])
 def test_prep_8tap_batch_parity(bpc, w, h, has_h, has_v):
-    from rav1d_tpu.ops.tpu.mc import prep_8tap_batch
+    from rav1d_jax.ops.dev.mc import prep_8tap_batch
 
     rng = np.random.default_rng(w * 7 + h + bpc + has_h * 2 + has_v)
     vis_w, vis_h = 96, 64
@@ -97,7 +97,7 @@ def test_prep_8tap_batch_parity(bpc, w, h, has_h, has_v):
 @pytest.mark.parametrize("bpc", [8, 10])
 @pytest.mark.parametrize("is_prep", [False, True])
 def test_bilin_batch_parity(bpc, is_prep):
-    from rav1d_tpu.ops.tpu.mc import bilin_batch
+    from rav1d_jax.ops.dev.mc import bilin_batch
 
     rng = np.random.default_rng(11 + bpc + is_prep)
     vis_w, vis_h = 64, 48
@@ -126,7 +126,7 @@ def test_bilin_batch_parity(bpc, is_prep):
 
 @pytest.mark.parametrize("bpc", [8, 10, 12])
 def test_compound_combiners_parity(bpc):
-    from rav1d_tpu.ops.tpu import mc as TM
+    from rav1d_jax.ops.dev import mc as TM
 
     rng = np.random.default_rng(5 + bpc)
     N, h, w = 6, 16, 16
@@ -151,7 +151,7 @@ def test_compound_combiners_parity(bpc):
 @pytest.mark.parametrize("bpc", [8, 10, 12])
 @pytest.mark.parametrize("ss_hor,ss_ver", [(0, 0), (1, 0), (1, 1)])
 def test_w_mask_batch_parity(bpc, ss_hor, ss_ver):
-    from rav1d_tpu.ops.tpu.mc import w_mask_batch
+    from rav1d_jax.ops.dev.mc import w_mask_batch
 
     rng = np.random.default_rng(9 + bpc + ss_hor * 2 + ss_ver)
     N, h, w = 5, 16, 32
@@ -169,7 +169,7 @@ def test_w_mask_batch_parity(bpc, ss_hor, ss_ver):
 
 
 def test_blend_batches_parity():
-    from rav1d_tpu.ops.tpu import mc as TM
+    from rav1d_jax.ops.dev import mc as TM
 
     rng = np.random.default_rng(17)
     N, h, w = 4, 16, 16
@@ -197,7 +197,7 @@ def test_blend_batches_parity():
 @pytest.mark.parametrize("bpc", [8, 10])
 @pytest.mark.parametrize("is_prep", [False, True])
 def test_mc_8tap_scaled_batch_parity(bpc, is_prep):
-    from rav1d_tpu.ops.tpu.mc import mc_8tap_scaled_batch
+    from rav1d_jax.ops.dev.mc import mc_8tap_scaled_batch
 
     rng = np.random.default_rng(23 + bpc + is_prep)
     vis_w, vis_h = 128, 96
@@ -235,7 +235,7 @@ def test_mc_8tap_scaled_batch_parity(bpc, is_prep):
 @pytest.mark.parametrize("bpc", [8, 10])
 @pytest.mark.parametrize("is_prep", [False, True])
 def test_bilin_scaled_batch_parity(bpc, is_prep):
-    from rav1d_tpu.ops.tpu.mc import bilin_scaled_batch
+    from rav1d_jax.ops.dev.mc import bilin_scaled_batch
 
     rng = np.random.default_rng(31 + bpc + is_prep)
     vis_w, vis_h = 96, 80
@@ -271,7 +271,7 @@ def test_bilin_scaled_batch_parity(bpc, is_prep):
 
 @pytest.mark.parametrize("bpc", [8, 10])
 def test_resize_batch_parity(bpc):
-    from rav1d_tpu.ops.tpu.mc import resize_batch
+    from rav1d_jax.ops.dev.mc import resize_batch
 
     rng = np.random.default_rng(41 + bpc)
     h, src_w, dst_w = 24, 64, 100

@@ -18,9 +18,9 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from rav1d_tpu.engine import mega  # noqa: E402
-from rav1d_tpu.engine.blob2 import bucket_pow2  # noqa: E402
-from rav1d_tpu.engine.mega import (  # noqa: E402
+from rav1d_jax.engine import mega  # noqa: E402
+from rav1d_jax.engine.blob2 import bucket_pow2  # noqa: E402
+from rav1d_jax.engine.mega import (  # noqa: E402
     INTER0, LR0, PAL0, R0, SIZES, SLOTS, WAVE0, WHT0,
     filter_prog, inter_prog, resid_prog, wave_prog,
 )

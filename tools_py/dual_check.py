@@ -1,152 +1,128 @@
 #!/usr/bin/env python
-"""Dual-run divergence finder: decode a vector with the native syntax pass
-and the Python anchor in two subprocesses, dump the per-block work-item
-stream + coefficient cursors, and report the first divergence."""
+"""Divergence finder between the native syntax pass and the Python anchor.
 
-import json
+Decodes a stream twice in one process, once with the C syntax pass
+(native/syntax.c) and once with the Python anchor (syntax/decode.py with
+the Python msac and coefficient reader), and
+compares the per-block work-item stream, coefficient-store cursors and
+per-frame syntax products; prints the first divergence.
+
+    python tools_py/dual_check.py <file.ivf> [frames]
+"""
+
+from __future__ import annotations
+
+import contextlib
+import hashlib
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+
+NAMES = ["poc", "kind", "bx", "by", "bs", "intra", "skip", "skip_mode",
+         "seg_id", "y_mode", "uv_mode", "tx", "uvtx", "max_ytx",
+         "tx_split0", "tx_split1", "inter_mode", "drl_idx", "ref", "mv",
+         "comp_type", "motion_mode", "filter2d", "interintra_type",
+         "wedge_idx", "mask_sign", "y_angle", "uv_angle", "cfl_alpha",
+         "tx_pos", "cf_pos", "edge_flags"]
 
 
-def dump(vec, limit, out_path):
-    sys.path.insert(0, ROOT)
-    from rav1d_tpu.decoder import Decoder, EAgain, Settings
-    from rav1d_tpu.io.ivf import IvfDemuxer
-    import rav1d_tpu.recon.frame as fr
+def _h(arr) -> str:
+    return hashlib.md5(np.ascontiguousarray(arr).tobytes()).hexdigest()[:12]
+
+
+def _rows(f):
+    store = f.coef_store
+    poc = f.frame_hdr.frame_offset
+    for wi in f.work_items:
+        b = wi.b
+        yield [poc, wi.kind, wi.bx, wi.by, int(wi.bs), b.intra, b.skip,
+               b.skip_mode, b.seg_id, b.y_mode, b.uv_mode, b.tx, b.uvtx,
+               b.max_ytx, b.tx_split0, b.tx_split1, b.inter_mode, b.drl_idx,
+               [int(v) for v in b.ref], [[int(v) for v in m] for m in b.mv],
+               b.comp_type, b.motion_mode, b.filter2d, b.interintra_type,
+               b.wedge_idx, b.mask_sign, b.y_angle, b.uv_angle,
+               [int(v) for v in b.cfl_alpha], wi.tx_pos, int(wi.cf_pos),
+               wi.intra_edge_flags]
+    yield ["STATE", poc, store.tx_pos, int(store.cf_pos),
+           _h(store.eob[: store.tx_pos]), _h(store.txtp[: store.tx_pos]),
+           _h(store.cf[: store.cf_pos]), _h(f.cdef_idx), _h(f.noskip4),
+           sorted((k, u.type, list(u.filter_v), list(u.filter_h),
+                   list(u.sgr_weights)) for k, u in f.lr_units.items())]
+
+
+def work_item_rows(data: bytes, native: bool, limit: int = 0) -> list:
+    """Decode `data` (IVF bytes) on the host and return one row per work
+    item plus a STATE row per frame; stops at the first decode error, which
+    becomes the last row."""
+    from rav1d_jax.decoder import Decoder, EAgain, Settings
+    from rav1d_jax.io.ivf import IvfDemuxer
+    from rav1d_jax.native import syntax as nsy
+    from rav1d_jax.entropy.msac import PyMsacContext
+    from rav1d_jax.recon import frame as fr
+    from rav1d_jax.syntax import decode as sd
 
     rows = []
-    orig = fr.run_dense_pass
+    orig = fr.decode_frame_dense
 
-    def hook(t, f, tile_states, sbrow_marks, cols):
-        store = f.coef_store
-        for wi in f.work_items:
-            b = wi.b
-            rows.append([
-                f.frame_hdr.frame_offset, wi.kind, wi.bx, wi.by, int(wi.bs),
-                b.intra, b.skip, b.skip_mode, b.seg_id, b.y_mode, b.uv_mode,
-                b.tx, b.uvtx, b.max_ytx, b.tx_split0, b.tx_split1,
-                b.inter_mode, b.drl_idx, list(map(int, b.ref)),
-                [list(map(int, m)) for m in b.mv], b.comp_type,
-                b.motion_mode, b.filter2d, b.interintra_type, b.wedge_idx,
-                b.mask_sign, list(map(int, b.pal_sz)), b.y_angle, b.uv_angle,
-                list(map(int, b.cfl_alpha)),
-                wi.tx_pos, int(wi.cf_pos), wi.sm_fl, wi.sm_uv_fl,
-                wi.intra_edge_flags, wi.tl_4x4_filter,
-            ])
-        rows.append(["EOB", f.frame_hdr.frame_offset, store.tx_pos,
-                     int(store.cf_pos),
-                     [int(v) for v in store.eob[: store.tx_pos]][:200000]])
-        rows.append(["TXTP", f.frame_hdr.frame_offset,
-                     [int(v) for v in store.txtp[: store.tx_pos]][:200000]])
-        import hashlib
+    def hook(f):
+        fr.materialize_work_items(f)
+        rows.extend(_rows(f))
+        return orig(f)
 
-        def h(arr):
-            return hashlib.md5(arr.tobytes()).hexdigest()[:12]
-
-        import numpy as np
-
-        snap = hashlib.md5()
-        for k, wi in enumerate(f.work_items):
-            pre = snap.hexdigest()
-            if wi.pal is not None:
-                snap.update(np.asarray(wi.pal).tobytes())
-            if wi.pal_idx is not None:
-                from rav1d_tpu.tables.block_tables import BLOCK_DIMENSIONS
-                bd = BLOCK_DIMENSIONS[wi.bs]
-                snap.update(
-                    np.asarray(wi.pal_idx)[: 2 * bd[0] * bd[1] * 16].tobytes())
-            if wi.a_filter is not None:
-                for d in range(2):
-                    snap.update(np.asarray(wi.a_filter[d], np.uint8).tobytes())
-                    snap.update(np.asarray(wi.l_filter[d], np.uint8).tobytes())
-            if wi.warpmv is not None:
-                snap.update(
-                    json.dumps([int(wi.warpmv.type), list(wi.warpmv.matrix),
-                                wi.warpmv.alpha, wi.warpmv.beta,
-                                wi.warpmv.gamma, wi.warpmv.delta]).encode())
-            if snap.hexdigest() != pre:
-                rows.append(["SNAP", k, wi.bx, wi.by, snap.hexdigest()[:10],
-                             None if wi.a_filter is None else
-                             [list(map(int, wi.a_filter[0])),
-                              list(map(int, wi.l_filter[0]))]])
-        rows.append(["STATE", f.frame_hdr.frame_offset,
-                     h(store.cf[: store.cf_pos]),
-                     [h(c) for c in f.lf_cls], h(f.lf_level),
-                     h(f.cdef_idx), h(f.noskip4), snap.hexdigest()[:12]])
-        return orig(t, f, tile_states, sbrow_marks, cols)
-
-    fr.run_dense_pass = hook
-    dec = Decoder(Settings(apply_grain=False))
-    n = 0
+    saved = nsy.FORCE_OFF, os.environ.get("RAV1D_ENGINE"), sd.TILE_MSAC
+    nsy.FORCE_OFF = not native
+    if not native:  # the anchor end to end: Python msac and coefficients
+        sd.TILE_MSAC = lambda data, dis, cdf: PyMsacContext(data, dis)
+    os.environ["RAV1D_ENGINE"] = "np"
+    fr.decode_frame_dense = hook
     try:
-        for pkt in IvfDemuxer(vec):
-            dec.send_data(pkt.data, pkt.timestamp)
-            while True:
-                try:
-                    dec.get_picture()
-                    n += 1
-                except EAgain:
-                    break
-            if n >= limit:
+        dec = Decoder(Settings(apply_grain=False, n_threads=1))
+        for i, pkt in enumerate(IvfDemuxer(data)):
+            if limit and i >= limit:
                 break
-    except Exception as e:  # keep the partial dump for diffing
-        rows.append(["EXC", repr(e)])
-    with open(out_path, "w") as fo:
-        for r in rows:
-            fo.write(json.dumps(r) + "\n")
-    print("frames:", n)
+            try:
+                dec.send_data(pkt.data, pkt.timestamp)
+            except Exception as e:
+                rows.append(["EXC", repr(e)])
+                break
+            with contextlib.suppress(EAgain):
+                dec.get_picture()
+    finally:
+        fr.decode_frame_dense = orig
+        nsy.FORCE_OFF, sd.TILE_MSAC = saved[0], saved[2]
+        if saved[1] is None:
+            os.environ.pop("RAV1D_ENGINE", None)
+        else:
+            os.environ["RAV1D_ENGINE"] = saved[1]
+    return rows
+
+
+def first_divergence(a: list, b: list):
+    """Index and description of the first differing row, or None."""
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        if ra != rb:
+            if ra and rb and ra[0] not in ("STATE", "EXC") \
+                    and rb[0] not in ("STATE", "EXC"):
+                diff = {n: (x, y) for n, x, y in zip(NAMES, ra, rb) if x != y}
+                return i, f"block at {dict(zip(NAMES[:5], ra[:5]))}: {diff}"
+            return i, f"native={str(ra)[:300]} python={str(rb)[:300]}"
+    if len(a) != len(b):
+        return min(len(a), len(b)), f"row count native {len(a)} python {len(b)}"
+    return None
 
 
 def main():
-    if sys.argv[1] == "--dump":
-        dump(sys.argv[2], int(sys.argv[3]), sys.argv[4])
-        return
-    vec = sys.argv[1]
-    limit = int(sys.argv[2]) if len(sys.argv) > 2 else 8
-    envn = dict(os.environ)
-    envp = dict(os.environ, RAV1D_TPU_NO_NATIVE_SYNTAX="1")
-    for name, env, out in (("native", envn, "/tmp/dc_native.jsonl"),
-                           ("python", envp, "/tmp/dc_python.jsonl")):
-        subprocess.run(
-            [sys.executable, __file__, "--dump", vec, str(limit), out],
-            env=env, check=True, cwd=ROOT,
-        )
-    a = open("/tmp/dc_native.jsonl").readlines()
-    b = open("/tmp/dc_python.jsonl").readlines()
-    names = ["poc", "kind", "bx", "by", "bs", "intra", "skip", "skip_mode",
-             "seg_id", "y_mode", "uv_mode", "tx", "uvtx", "max_ytx",
-             "tx_split0", "tx_split1", "inter_mode", "drl_idx", "ref", "mv",
-             "comp_type", "motion_mode", "filter2d", "interintra_type",
-             "wedge_idx", "mask_sign", "pal_sz", "y_angle", "uv_angle",
-             "cfl_alpha", "tx_pos", "cf_pos", "sm_fl", "sm_uv_fl",
-             "edge_flags", "tl_4x4_filter"]
-    for i, (la, lb) in enumerate(zip(a, b)):
-        if la != lb:
-            ra, rb = json.loads(la), json.loads(lb)
-            print(f"first divergence at row {i}")
-            if ra[0] == "EOB" or rb[0] == "EOB":
-                print("EOB row:")
-                print(" native:", str(ra)[:400])
-                print(" python:", str(rb)[:400])
-                if ra[0] == "EOB" and rb[0] == "EOB":
-                    ea, eb = ra[4], rb[4]
-                    for k, (x, y) in enumerate(zip(ea, eb)):
-                        if x != y:
-                            print(f" first eob diff at tx {k}: {x} vs {y}")
-                            break
-            else:
-                for n_, x, y in zip(names, ra, rb):
-                    if x != y:
-                        print(f" {n_}: native={x} python={y}")
-                print(" ctx: native", dict(zip(names[:5], ra[:5])))
-            return
-    if len(a) != len(b):
-        print(f"length mismatch: native {len(a)} python {len(b)}")
-    else:
-        print("streams identical", len(a), "rows")
+    data = open(sys.argv[1], "rb").read()
+    limit = int(sys.argv[2]) if len(sys.argv) > 2 else 0
+    a = work_item_rows(data, True, limit)
+    b = work_item_rows(data, False, limit)
+    d = first_divergence(a, b)
+    print("identical, %d rows" % len(a) if d is None
+          else "first divergence at row %d: %s" % d)
 
 
 if __name__ == "__main__":

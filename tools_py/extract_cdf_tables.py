@@ -11,7 +11,7 @@ The stored values follow the dav1d in-memory convention used by our msac
 implementation: stored[i] = (32768 - spec_cdf[i]) & 0x7fff (probability of
 "symbol >= i+1"), which is what cdf0d() in src/cdf.rs:169 computes.
 
-Output: rav1d_tpu/tables/default_cdf.npz with one array per context group.
+Output: rav1d_jax/tables/default_cdf.npz with one array per context group.
 """
 
 import ast
@@ -187,7 +187,7 @@ def main():
     for k in out:
         out[k] = ((32768 - out[k].astype(np.int32)) & 0x7FFF).astype(np.uint16)
 
-    np.savez_compressed("rav1d_tpu/tables/default_cdf.npz", **out)
+    np.savez_compressed("rav1d_jax/tables/default_cdf.npz", **out)
     total = sum(a.size for a in out.values())
     print(f"wrote {len(out)} tables, {total} u16 values")
     for k in sorted(out):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Extract AV1 numeric normative tables (scans, dequant, DSP filter
-coefficients, grain PRNG sequence) into rav1d_tpu/tables/spec_tables.npz.
+coefficients, grain PRNG sequence) into rav1d_jax/tables/spec_tables.npz.
 
 Like the default CDFs, these are specification data identical in every
 conforming AV1 decoder (spec sections 5.9.x / 7.x lookup tables; also in
@@ -111,7 +111,7 @@ def main():
     ]:
         out[name] = grab_array(qm_src, name, np.uint8)
 
-    np.savez_compressed("rav1d_tpu/tables/spec_tables.npz", **out)
+    np.savez_compressed("rav1d_jax/tables/spec_tables.npz", **out)
     print(f"wrote {len(out)} tables")
     for k in sorted(out):
         print(f"  {k}: {out[k].shape} {out[k].dtype}")
